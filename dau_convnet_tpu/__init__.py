@@ -1,26 +1,40 @@
-"""dau_convnet_tpu: TPU-native Displaced Aggregation Unit convolutions.
+"""Former name of the `dau_convnet` package, kept so that old imports work.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-skokec/DAU-ConvNet (CVPR 2018 "Spatially-Adaptive Filter Units for Deep
-Neural Networks"): learnable per-unit Gaussian displacement convolutions,
-with a flax layer API mirroring the reference TensorFlow plugin.
+Importing this package, or any module under it, gives the `dau_convnet`
+module of the same path itself (the same object, so classes and settings
+compare equal across the two names), with a DeprecationWarning.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-from .ops import (
-    DAUConvSettings,
-    blur_kernel_size,
-    dau_conv2d_op,
-    depthwise_blur,
-    gaussian_filters,
-)
+import dau_convnet
 
-__all__ = [
-    "DAUConvSettings",
-    "dau_conv2d_op",
-    "blur_kernel_size",
-    "depthwise_blur",
-    "gaussian_filters",
-    "__version__",
-]
+_NEW = "dau_convnet"
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<old name>.x.y` to the already importable `dau_convnet.x.y`."""
+
+    def __init__(self, old):
+        self.old = old
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(self.old + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(self.old):])
+
+    def exec_module(self, module):
+        pass
+
+
+warnings.warn(f"the package {__name__} is now {_NEW}; import {_NEW}",
+              DeprecationWarning, stacklevel=2)
+sys.meta_path.insert(0, _AliasFinder(__name__))
+sys.modules[__name__] = dau_convnet

@@ -1,15 +1,16 @@
 """Serving-path example: AOT-export a DAU model and run batched inference.
 
 The reference has no serving story (inference went through the same TF
-session as training). The TPU-native equivalent is `jax.export`: trace +
+session as training). The equivalent here is `jax.export`: trace +
 lower the jitted forward once, serialize the StableHLO artifact, and
 rehydrate it in a serving process with no Python model code - the
 round-trip below proves the DAU custom-VJP op and both engines lower to a
 self-contained artifact.
 
-Run (CPU or TPU):  python examples/serve_inference.py
+Run:  python examples/serve_inference.py
 """
 
+import os
 import time
 
 import numpy as np
@@ -18,10 +19,13 @@ import jax
 import jax.numpy as jnp
 from jax import export as jexport
 
-from dau_convnet_tpu.models import DAUCifarNet
+from dau_convnet.models import DAUCifarNet
+from dau_convnet.utils.device import configure_compile_cache
 
 
 def main():
+    configure_compile_cache(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     rng = np.random.default_rng(0)
     model = DAUCifarNet(train=False)
     x_spec = jax.ShapeDtypeStruct((8, 3, 32, 32), jnp.float32)

@@ -17,7 +17,7 @@
 //   - zero-padding for shifted reads.
 //
 // Exposed C ABI (double precision; used via ctypes from
-// dau_convnet_tpu/ops/cpp_oracle.py):
+// dau_convnet/ops/cpp_oracle.py):
 //   dau_blur2d            - (N*C, H, W) planes (x) filter -> out
 //   dau_offset_and_sum    - blurred x, params -> y
 //   dau_offset_and_dot    - blurred x, error, mus -> per-unit dots

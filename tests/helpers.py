@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from dau_convnet_tpu.ops import reference as oracle
+from dau_convnet.ops import reference as oracle
 
 
 def assert_matrix(mat, gt, name, rel_tolerance=0.01, scale_aware=False):

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.nn import DAUConv2d
+from dau_convnet.nn import DAUConv2d
 
 orbax = pytest.importorskip("orbax.checkpoint")
 
-from dau_convnet_tpu.utils.checkpoint import (  # noqa: E402
+from dau_convnet.utils.checkpoint import (  # noqa: E402
     latest_step,
     restore_checkpoint,
     save_checkpoint,

@@ -1,10 +1,10 @@
-"""Input pipeline tests: prefetch + batching (TPU-native addition)."""
+"""Input pipeline tests: prefetch + batching."""
 
 import numpy as np
 import jax
 
-from dau_convnet_tpu.data import epoch_batches, prefetch_to_device
-from dau_convnet_tpu.parallel import batch_sharding, make_mesh
+from dau_convnet.data import epoch_batches, prefetch_to_device
+from dau_convnet.parallel import batch_sharding, make_mesh
 
 
 def test_epoch_batches_cover_all():

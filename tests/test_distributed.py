@@ -1,7 +1,7 @@
 """Multi-device tests: sharded training numerics match single-device.
 
 The reference has no distributed layer (SURVEY.md section 2.3); these tests
-pin the TPU-native addition: DP and DPxTP sharded training steps produce the
+pin this package's addition: DP and DPxTP sharded training steps produce the
 same numbers as the unsharded computation, with XLA inserting the
 collectives. Runs on the 8 virtual CPU devices from conftest.
 """
@@ -13,8 +13,8 @@ import optax
 import pytest
 from flax import linen as nn
 
-from dau_convnet_tpu.nn import DAUConv2d
-from dau_convnet_tpu.parallel import (
+from dau_convnet.nn import DAUConv2d
+from dau_convnet.parallel import (
     batch_sharding,
     init_sharded,
     make_mesh,
@@ -102,7 +102,7 @@ def test_opt_shardings_keyed_by_tree_path():
     sharding in the optimizer slots (a (shape, dtype)-keyed map would
     silently alias the second onto the first's sharding)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from dau_convnet_tpu.parallel.train import _opt_shardings
+    from dau_convnet.parallel.train import _opt_shardings
 
     mesh = make_mesh(jax.devices()[:8], model=2)
     params = {
@@ -147,8 +147,8 @@ def test_spatial_sharding_matches_single_device(engine):
     for the blur + aggregation convolutions (cross-chip analogue of the
     reference's intra-GPU patch decomposition). For the fourier engine the
     DFT matmuls contract the sharded H axis (SPMD gathers it)."""
-    from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-    from dau_convnet_tpu.parallel import spatial_sharding
+    from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
+    from dau_convnet.parallel import spatial_sharding
 
     rng = np.random.default_rng(0)
     S, G, F = 3, 2, 4
@@ -171,213 +171,10 @@ def test_spatial_sharding_matches_single_device(engine):
                                rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("gather", ["phi", "factored"])
-@pytest.mark.parametrize("fused_dx", ["off", "on"])
-def test_sharded_fused_backward_matches_single_device(fused_dx, gather,
-                                                      caplog):
-    """The fused Pallas backward under data-parallel sharding: with a mesh
-    context the op shard_maps the kernel over the data axis (per-shard
-    batch + psum on the unit grads) instead of dropping to the unfused
-    path. Numerics must match the single-device fused run, for BOTH
-    in-kernel gather forms. (VERDICT r3 item 3; on CPU the kernel runs in
-    interpret mode.)"""
-    import logging
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-
-    rng = np.random.default_rng(0)
-    N, S, G, F, H, W = 8, 8, 2, 8, 12, 10
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg = DAUConvSettings(kernel_size=9, engine="fourier", fused_bwd="on",
-                          fused_dx=fused_dx, fused_gather=gather)
-
-    def fwd_bwd(x, w, mu1, mu2, sig, err):
-        y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                         x, w, mu1, mu2, sig)
-        return y, vjp(err)
-
-    y_ref, g_ref = jax.jit(fwd_bwd)(x, w, mu1, mu2, sig, err)
-
-    mesh = make_mesh(jax.devices()[:8], model=1)
-    bsh = NamedSharding(mesh, P("data"))
-    rsh = NamedSharding(mesh, P())
-    with jax.sharding.set_mesh(mesh), \
-            caplog.at_level(logging.INFO,
-                            logger="dau_convnet_tpu.ops.dau_conv"):
-        y_sh, g_sh = jax.jit(
-            fwd_bwd, in_shardings=((bsh,) + (rsh,) * 4 + (bsh,)))(
-            jax.device_put(x, bsh), w, mu1, mu2, sig,
-            jax.device_put(err, bsh))
-    assert "route=shard_map" in caplog.text, caplog.text
-    np.testing.assert_allclose(np.asarray(y_sh), np.asarray(y_ref),
-                               rtol=2e-5, atol=2e-6)
-    for a, b, nm in zip(g_sh, g_ref, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-5, atol=5e-6, err_msg=nm)
-
-
-def test_forced_fused_without_mesh_context_is_correct():
-    """fused_bwd='on' with sharded inputs but NO mesh context takes the
-    direct route; GSPMD replicates the opaque kernel call - slower than
-    the shard_map route but numerically correct (pinned here so the
-    fallback corner stays contractual)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-
-    rng = np.random.default_rng(1)
-    N, S, G, F, H, W = 8, 8, 2, 8, 12, 10
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg = DAUConvSettings(kernel_size=9, engine="fourier", fused_bwd="on")
-
-    def fwd_bwd(x, w, mu1, mu2, sig, err):
-        y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                         x, w, mu1, mu2, sig)
-        return y, vjp(err)
-
-    y_ref, g_ref = jax.jit(fwd_bwd)(x, w, mu1, mu2, sig, err)
-    mesh = make_mesh(jax.devices()[:8], model=1)
-    bsh = NamedSharding(mesh, P("data"))
-    rsh = NamedSharding(mesh, P())
-    y_sh, g_sh = jax.jit(fwd_bwd, in_shardings=((bsh,) + (rsh,) * 4 + (bsh,)))(
-        jax.device_put(x, bsh), w, mu1, mu2, sig, jax.device_put(err, bsh))
-    np.testing.assert_allclose(np.asarray(y_sh), np.asarray(y_ref),
-                               rtol=2e-5, atol=2e-6)
-    for a, b in zip(g_sh, g_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-5, atol=5e-6)
-
-
-@pytest.mark.parametrize("fused_dx", ["off", "on"])
-@pytest.mark.parametrize("mesh_kind", ["dp_x_tp", "tp_only"])
-def test_tp_sharded_fused_backward_partitions_f(mesh_kind, fused_dx, caplog):
-    """Under tensor parallelism the fused backward partitions the F dim of
-    the error/params over the model axis (unit grads stay F-sharded; a
-    psum over the axis closes dx) instead of gathering F and duplicating
-    the kernel's work per model shard. Numerics must match the
-    single-device fused run; the partitioned axes are asserted from the
-    op's log."""
-    import logging
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-
-    rng = np.random.default_rng(2)
-    # F=16 so the per-model-shard F slice (16/2 = 8) still has a kernel
-    # plan (interpret mode requires F % 8 == 0, fused_bwd._block_shapes).
-    N, S, G, F, H, W = 8, 8, 2, 16, 12, 10
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg = DAUConvSettings(kernel_size=9, engine="fourier", fused_bwd="on",
-                          fused_dx=fused_dx)
-
-    def fwd_bwd(x, w, mu1, mu2, sig, err):
-        y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                         x, w, mu1, mu2, sig)
-        return y, vjp(err)
-
-    y_ref, g_ref = jax.jit(fwd_bwd)(x, w, mu1, mu2, sig, err)
-
-    if mesh_kind == "dp_x_tp":
-        mesh = make_mesh(jax.devices()[:8], model=2)
-        expect = "fused shard_map axes: data=data model=model"
-    else:
-        mesh = make_mesh(jax.devices()[:2], data=1, model=2)
-        expect = "fused shard_map axes: data=None model=model"
-    dax = "data" if mesh.shape["data"] > 1 else None
-    bsh = NamedSharding(mesh, P(dax))
-    fsh = NamedSharding(mesh, P(None, None, None, "model"))  # TP params
-    esh = NamedSharding(mesh, P(dax, "model"))               # (N,F,H,W) err
-    with jax.sharding.set_mesh(mesh), \
-            caplog.at_level(logging.INFO,
-                            logger="dau_convnet_tpu.ops.dau_conv"):
-        y_sh, g_sh = jax.jit(
-            fwd_bwd, in_shardings=((bsh,) + (fsh,) * 4 + (esh,)))(
-            jax.device_put(x, bsh), jax.device_put(w, fsh),
-            jax.device_put(mu1, fsh), jax.device_put(mu2, fsh),
-            jax.device_put(sig, fsh), jax.device_put(err, esh))
-    assert "route=shard_map" in caplog.text, caplog.text
-    assert expect in caplog.text, caplog.text
-    np.testing.assert_allclose(np.asarray(y_sh), np.asarray(y_ref),
-                               rtol=2e-5, atol=2e-6)
-    for a, b, nm in zip(g_sh, g_ref, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-5, atol=5e-6, err_msg=nm)
-
-
-@pytest.mark.parametrize("mesh_kind", ["dp_x_tp", "tp_only"])
-def test_tp_fused_backward_gathers_f_without_per_shard_plan(mesh_kind, caplog):
-    """When the per-shard F slice has no kernel plan (here F=8 over
-    model=2 - interpret mode needs F % 8 == 0; compiled TPU needs
-    F % 128 == 0), the fused backward retries with F gathered instead of
-    dropping to the unfused path. Numerics must still match the
-    single-device fused run."""
-    import logging
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-
-    rng = np.random.default_rng(5)
-    N, S, G, F, H, W = 8, 8, 2, 8, 12, 10
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg = DAUConvSettings(kernel_size=9, engine="fourier", fused_bwd="on")
-
-    def fwd_bwd(x, w, mu1, mu2, sig, err):
-        y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                         x, w, mu1, mu2, sig)
-        return y, vjp(err)
-
-    y_ref, g_ref = jax.jit(fwd_bwd)(x, w, mu1, mu2, sig, err)
-
-    if mesh_kind == "dp_x_tp":
-        mesh = make_mesh(jax.devices()[:8], model=2)
-    else:
-        mesh = make_mesh(jax.devices()[:2], data=1, model=2)
-    dax = "data" if mesh.shape["data"] > 1 else None
-    bsh = NamedSharding(mesh, P(dax))
-    fsh = NamedSharding(mesh, P(None, None, None, "model"))
-    esh = NamedSharding(mesh, P(dax, "model"))
-    with jax.sharding.set_mesh(mesh), \
-            caplog.at_level(logging.INFO,
-                            logger="dau_convnet_tpu.ops.dau_conv"):
-        y_sh, g_sh = jax.jit(
-            fwd_bwd, in_shardings=((bsh,) + (fsh,) * 4 + (esh,)))(
-            jax.device_put(x, bsh), jax.device_put(w, fsh),
-            jax.device_put(mu1, fsh), jax.device_put(mu2, fsh),
-            jax.device_put(sig, fsh), jax.device_put(err, esh))
-    assert "route=shard_map" in caplog.text, caplog.text
-    assert "gathering F" in caplog.text, caplog.text
-    assert f"data={dax} model=None" in caplog.text, caplog.text
-    np.testing.assert_allclose(np.asarray(y_sh), np.asarray(y_ref),
-                               rtol=2e-5, atol=2e-6)
-    for a, b, nm in zip(g_sh, g_ref, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-5, atol=5e-6, err_msg=nm)
-
-
 def test_sharded_training_with_batch_stats():
     """BatchNorm models (the CIFAR net) train under the sharded step; the
     mutable batch_stats collection rides in TrainState.extra_vars."""
-    from dau_convnet_tpu.models import DAUCifarNet
+    from dau_convnet.models import DAUCifarNet
 
     model = DAUCifarNet(train=True)
     rng = np.random.default_rng(0)
@@ -398,3 +195,79 @@ def test_sharded_training_with_batch_stats():
     bs = state.extra_vars["batch_stats"]
     leaf = jax.tree_util.tree_leaves(bs)[0]
     assert np.any(np.asarray(leaf) != 0.0)
+
+
+class FunctionalTinyNet:
+    """TinyDAUNet without flax: one DAULayer + dense head in the
+    `init`/`apply` form make_train_step consumes."""
+
+    def __init__(self, engine, remat_phi=False):
+        from dau_convnet.nn import DAULayer
+
+        self.dau = DAULayer(filters=8, dau_units=(2, 1), max_kernel_size=9,
+                            use_bias=False, engine=engine,
+                            remat_phi=remat_phi)
+
+    def init(self, rng, x):
+        k1, k2 = jax.random.split(rng)
+        return {"params": {
+            "dau": self.dau.init(k1, x.shape[1]),
+            "head": {"kernel": jax.nn.initializers.lecun_normal()(k2, (8, 4)),
+                     "bias": jnp.zeros((4,))}}}
+
+    def apply(self, variables, x):
+        p = variables["params"]
+        x = self.dau.apply(p["dau"], x, activation=jax.nn.relu)
+        return x.mean(axis=(2, 3)) @ p["head"]["kernel"] + p["head"]["bias"]
+
+
+def _one_step_vs_single(model, mesh, tx):
+    x, y = _data()
+    state, sh = init_sharded(model, tx, mesh, x, rng=jax.random.PRNGKey(0))
+    params0 = jax.device_get(state.params)
+
+    def loss_fn(p):
+        logits = model.apply({"params": p}, x)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+
+    loss_ref, grads = jax.jit(jax.value_and_grad(loss_fn))(params0)
+    updates, _ = tx.update(grads, tx.init(params0))
+    params_ref = optax.apply_updates(params0, updates)
+
+    step = make_train_step(model, tx, mesh, sh, donate=False)
+    state1, loss = step(state, x, y)
+    np.testing.assert_allclose(float(loss), float(loss_ref),
+                               rtol=2e-5, atol=2e-6)
+    for a, b in zip(jax.tree_util.tree_leaves(state1.params),
+                    jax.tree_util.tree_leaves(params_ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=2e-4, atol=2e-5)
+    return state1
+
+
+@pytest.mark.parametrize("engine", ["xla", "fourier"])
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2), (1, 4), (8, 1)],
+                         ids=["dp4", "dp2_x_tp2", "tp4", "dp8"])
+def test_functional_sharded_step_matches_single_device(mesh_shape, engine):
+    """The flax-free model under make_train_step on every mesh shape the
+    four- and eight-device layouts allow, against the unsharded step."""
+    data, model_par = mesh_shape
+    mesh = make_mesh(jax.devices()[:data * model_par], data=data,
+                     model=model_par)
+    state1 = _one_step_vs_single(FunctionalTinyNet(engine), mesh,
+                                 optax.sgd(0.1))
+    w_sh = state1.params["dau"]["weights"].sharding
+    expect = (None, None, None, "model") if model_par > 1 else ()
+    assert tuple(w_sh.spec) == expect
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)],
+                         ids=["dp4", "dp2_x_tp2"])
+def test_remat_phi_under_mesh(mesh_shape):
+    """remat_phi (the phase table rebuilt in the backward) under a sharded
+    step gives the unsharded numbers."""
+    data, model_par = mesh_shape
+    mesh = make_mesh(jax.devices()[:data * model_par], data=data,
+                     model=model_par)
+    _one_step_vs_single(FunctionalTinyNet("fourier", remat_phi=True), mesh,
+                        optax.sgd(0.1))

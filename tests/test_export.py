@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 from jax import export as jexport
 
-from dau_convnet_tpu.nn import DAUConv2d
+from dau_convnet.nn import DAUConv2d
 from flax import linen as nn
 
 

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
 
 
 def _rel_err(a, ref):
@@ -69,7 +69,7 @@ def test_phase_tables_match_trig_f32():
     """_tap_phase_tables (integer cos/sin lookup via skinny matmul) must
     reproduce _tap_phase (runtime transcendentals) to f32 roundoff for
     in-contract mu (|mu| <= span - 1)."""
-    from dau_convnet_tpu.ops import fourier_engine as fe
+    from dau_convnet.ops import fourier_engine as fe
 
     rng = np.random.default_rng(3)
     mu = jnp.asarray(rng.uniform(-3.99, 3.99, (8, 2, 16)), jnp.float32)
@@ -87,7 +87,7 @@ def test_phase_tables_match_trig_f32():
 
 
 def test_build_phi_tables_match_trig_f32():
-    from dau_convnet_tpu.ops import fourier_engine as fe
+    from dau_convnet.ops import fourier_engine as fe
 
     rng = np.random.default_rng(4)
     S, G, F = 6, 2, 8
@@ -99,3 +99,36 @@ def test_build_phi_tables_match_trig_f32():
     b = jnp.stack(fe.build_phi(w, mu1, mu2, p1, p2, rb, phase_span=5,
                                precision=jax.lax.Precision.HIGHEST))
     np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=3e-6)
+
+
+@pytest.mark.parametrize("engine", ["xla", "fourier"])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 9), (3, 8, 20, 13)],
+                         ids=["s16f12", "s8f20"])
+def test_f64_matches_oracle_to_f64_roundoff(engine, shape):
+    """float64 operands compute in float64 in both engines (the fourier
+    engine's angles, accumulations and spectra follow the operands), so
+    the op agrees with the float64 oracle to ~1e-15."""
+    from dau_convnet.ops import reference
+
+    n, s, f, hw = shape
+    rng = np.random.default_rng(5)
+    x = rng.random((n, s, hw, hw))
+    w = rng.standard_normal((1, s, 2, f)) * 0.1
+    mu1, mu2 = rng.uniform(-3.9, 3.9, (2, 1, s, 2, f))
+    err = rng.standard_normal((n, f, hw, hw))
+    with jax.enable_x64(True):
+        cfg = DAUConvSettings(kernel_size=9, compute_sigma_grad=False,
+                              precision="highest", engine=engine)
+        sig = jnp.full((1,), 0.5, jnp.float64)
+        y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a, sig),
+                         *(jnp.asarray(a, jnp.float64)
+                           for a in (x, w, mu1, mu2)))
+        got = [y, *vjp(jnp.asarray(err, jnp.float64))]
+        assert all(g.dtype == jnp.float64 for g in got)
+    want = [reference.forward(x, w, mu1, mu2, [0.5])]
+    want.append(reference.forward(
+        err, np.swapaxes(w, 1, 3), np.swapaxes(-mu1, 1, 3),
+        np.swapaxes(-mu2, 1, 3), [0.5], do_error_backprop=True))
+    want.extend(reference.backward(x, err, w, mu1, mu2, [0.5])[1:4])
+    for name, g, r in zip(("y", "dx", "dw", "dmu1", "dmu2"), got, want):
+        assert _rel_err(g, r) < 1e-12, (name, _rel_err(g, r))

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op, cpp_oracle
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op, cpp_oracle
 
 from helpers import assert_matrix, random_case
 

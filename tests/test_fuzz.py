@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.ops import DAUConvSettings, cpp_oracle, dau_conv2d_op
+from dau_convnet.ops import DAUConvSettings, cpp_oracle, dau_conv2d_op
 
 from helpers import assert_matrix, random_case
 
@@ -101,7 +101,7 @@ def test_fuzz_random_sigma(seed):
     the C++ oracle - the rest of the suite mostly pins sigma=0.5, leaving
     the quotient-rule derivative-filter path (base_dau_conv_layer.cu:
     680-683) exercised at a single width."""
-    from dau_convnet_tpu.ops.gaussian import blur_kernel_size
+    from dau_convnet.ops.gaussian import blur_kernel_size
 
     rng = np.random.default_rng(9000 + seed)
     sigma = float(rng.uniform(0.35, 1.3))

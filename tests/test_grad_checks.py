@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 from jax.test_util import check_grads
 
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
 
 from helpers import random_case
 

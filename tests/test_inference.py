@@ -1,7 +1,7 @@
 """Serving path: `dau_conv2d_infer` + `precompute_phi` + layer phi caching.
 
 The reference has no separate serving path (inference runs the same op,
-README.md:37-39); the TPU build adds one because the fourier engine's phase
+README.md:37-39); this package adds one because the fourier engine's phase
 table is a pure function of the frozen (w, mu1, mu2) - a constant at serving
 time. Contract pinned here: the cached-phi forward is BIT-EXACT against the
 regular op forward (same table build, same apply), across param refreshes.
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dau_convnet_tpu.nn import DAUConv2d, refresh_phi_cache
-from dau_convnet_tpu.ops import (DAUConvSettings, dau_conv2d_infer,
+from dau_convnet.nn import DAUConv2d, refresh_phi_cache
+from dau_convnet.ops import (DAUConvSettings, dau_conv2d_infer,
                                  dau_conv2d_op, precompute_phi)
 
 

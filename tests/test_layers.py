@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 from flax import linen as nn
 
-from dau_convnet_tpu.nn import DAUConv1d, DAUConv2d, DAUGridMean
+from dau_convnet.nn import DAUConv1d, DAUConv2d, DAUGridMean
 
 from helpers import assert_matrix, oracle_fwd_bwd
 
@@ -221,7 +221,7 @@ def test_constraints_and_regularizers():
 
 
 def test_dau_conv1d_functional_wrapper():
-    from dau_convnet_tpu.nn import dau_conv1d
+    from dau_convnet.nn import dau_conv1d
 
     class Net(nn.Module):
         @nn.compact
@@ -240,7 +240,7 @@ def test_dau_conv1d_functional_wrapper():
 
 def test_validate_dau_params():
     import pytest
-    from dau_convnet_tpu.utils.math import validate_dau_params
+    from dau_convnet.utils.math import validate_dau_params
 
     good = dict(w=np.ones((1, 2, 2, 3)), mu1=np.ones((1, 2, 2, 3)),
                 mu2=-np.ones((1, 2, 2, 3)), sigma=np.array([0.5]))
@@ -261,7 +261,7 @@ def test_project_dau_params():
     """project_dau_params clips sigma/mu leaves into their valid ranges
     (functional analogue of the reference's in-place bounds guard,
     base_dau_conv_layer.cu:33-49) and leaves everything else alone."""
-    from dau_convnet_tpu.nn import project_dau_params
+    from dau_convnet.nn import project_dau_params
 
     params = {
         "dau1": {"sigma": jnp.asarray([0.1]),

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from dau_convnet_tpu.models import ALEXNET_DAU_VARIANTS, AlexNetDAU, DAUCifarNet
+from dau_convnet.models import ALEXNET_DAU_VARIANTS, AlexNetDAU, DAUCifarNet
 
 
 def test_cifar_net_forward_and_train_step():
@@ -51,7 +51,7 @@ def test_alexnet_unit_budgets_match_published():
 
 
 def test_alexnet_forward_shape():
-    model = AlexNetDAU(variant="small", train=False, num_classes=17)
+    model = AlexNetDAU(variant="small", num_classes=17)
     x = jnp.ones((1, 3, 127, 127), jnp.float32)
     params = jax.jit(model.init)(jax.random.PRNGKey(0), x)
     y = jax.jit(model.apply)(params, x)
@@ -63,7 +63,7 @@ def test_alexnet_forward_shape():
 
 
 def test_dau_resnet_forward_and_train_smoke():
-    from dau_convnet_tpu.models import DAUResNet
+    from dau_convnet.models import DAUResNet
 
     model = DAUResNet(depth="18", width=8, num_classes=5, train=True)
     rng = np.random.default_rng(0)
@@ -101,7 +101,7 @@ def test_dau_resnet_forward_and_train_smoke():
 
 def test_params_npz_roundtrip(tmp_path):
     """save_params_npz <-> load_params_npz preserve the variables pytree."""
-    from dau_convnet_tpu.utils.checkpoint import (load_params_npz,
+    from dau_convnet.utils.checkpoint import (load_params_npz,
                                                   save_params_npz)
 
     net = DAUCifarNet(train=True)
@@ -126,7 +126,7 @@ def test_params_npz_roundtrip(tmp_path):
 def test_params_npz_single_leaf_roundtrip(tmp_path):
     """A named tree that is a single bare array (no nesting) must come back
     as the array itself, not {name: {name: array}} (round-4 review fix)."""
-    from dau_convnet_tpu.utils.checkpoint import (load_params_npz,
+    from dau_convnet.utils.checkpoint import (load_params_npz,
                                                   save_params_npz)
 
     path = str(tmp_path / "leaf.npz")
@@ -150,8 +150,8 @@ def test_recorded_digits_params_load():
                         "digits_dau_params.npz")
     if not os.path.exists(path):
         pytest.skip("trained artifact not present")
-    from dau_convnet_tpu.nn.layers import set_dau_variables_manually
-    from dau_convnet_tpu.utils.checkpoint import load_params_npz
+    from dau_convnet.nn import set_dau_variables_manually
+    from dau_convnet.utils.checkpoint import load_params_npz
 
     trees = load_params_npz(path)
     params, batch_stats = trees["params"], trees["batch_stats"]
@@ -203,8 +203,8 @@ def test_recorded_sigma_trained_params_load():
                         "digits_dau_sigma_params.npz")
     if not os.path.exists(path):
         pytest.skip("trained artifact not present")
-    from dau_convnet_tpu.nn.layers import set_dau_variables_manually
-    from dau_convnet_tpu.utils.checkpoint import load_params_npz
+    from dau_convnet.nn import set_dau_variables_manually
+    from dau_convnet.utils.checkpoint import load_params_npz
 
     trees = load_params_npz(path)
     params, batch_stats = trees["params"], trees["batch_stats"]
@@ -252,7 +252,7 @@ def test_recorded_spatial_artifact_pair_accuracy():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     from examples.train_cifar10 import synthetic_spatial
 
-    from dau_convnet_tpu.utils.checkpoint import load_params_npz
+    from dau_convnet.utils.checkpoint import load_params_npz
 
     trees = load_params_npz(path)
     params, batch_stats = trees["params"], trees["batch_stats"]
@@ -275,3 +275,125 @@ def test_recorded_spatial_artifact_pair_accuracy():
     # slice adds ~+-0.02 sampling noise)
     assert 0.42 <= top1 <= 0.58, top1
     assert pair >= 0.92, pair
+
+
+# ---- the flax-free AlexNet-DAU and the layer core ---------------------------
+
+import pytest  # noqa: E402
+
+from dau_convnet.models import AlexNetConv  # noqa: E402
+from dau_convnet.models.alexnet import dau_input_hw  # noqa: E402
+from dau_convnet.nn import DAULayer  # noqa: E402
+
+
+@pytest.mark.parametrize("variant,g,budget", [("small", 2, 368_640),
+                                              ("default", 2, 737_280),
+                                              ("large", 4, 1_474_560)])
+def test_functional_alexnet_variant_shapes(variant, g, budget):
+    """Per variant: the unit budget, the DAU parameter shapes (G rounded up
+    to groups of 2: 'small' carries one dummy unit) and the logits."""
+    model = AlexNetDAU(variant=variant, num_classes=7)
+    assert model.num_dau_units() == budget
+    x = jnp.ones((1, 3, 67, 67), jnp.float32)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), x)
+    p = variables["params"]
+    assert set(p) == {"conv1", "dau_conv2", "dau_conv3", "dau_conv4",
+                      "dau_conv5", "fc6", "fc7", "fc8"}
+    assert p["conv1"]["kernel"].shape == (11, 11, 3, 96)
+    for name, s, f in (("dau_conv2", 96, 256), ("dau_conv3", 256, 384),
+                       ("dau_conv4", 384, 384), ("dau_conv5", 384, 256)):
+        assert p[name]["weights"].shape == (1, s, g, f)
+        assert p[name]["sigma"].shape == (1,)
+        assert p[name]["bias"].shape == (f,)
+    if variant == "small":  # the dummy unit's weights start at zero
+        assert np.all(np.asarray(p["dau_conv2"]["weights"])[:, :, 1] == 0)
+    assert p["fc8"]["kernel"].shape == (4096, 7)
+    assert jax.jit(model.apply)(variables, x).shape == (1, 7)
+
+
+def test_dau_input_hw_matches_alexnet_geometry():
+    assert dau_input_hw(227, 227) == {"dau_conv2": (27, 27),
+                                      "dau_conv3": (13, 13),
+                                      "dau_conv4": (13, 13),
+                                      "dau_conv5": (13, 13)}
+
+
+def test_alexnet_conv_baseline_shares_the_topology():
+    x = jnp.ones((2, 3, 67, 67), jnp.float32)
+    conv = AlexNetConv(num_classes=5)
+    variables = jax.jit(conv.init)(jax.random.PRNGKey(0), x)
+    assert variables["params"]["dau_conv3"]["kernel"].shape == (3, 3, 256, 384)
+    assert jax.jit(conv.apply)(variables, x).shape == (2, 5)
+
+
+def test_alexnet_phi_tables_serving_matches_plain():
+    """The flax-free serving form: per-layer phase tables built once from
+    frozen params reproduce the plain forward exactly on the CPU."""
+    model = AlexNetDAU(variant="default", num_classes=10, dtype=jnp.bfloat16)
+    x = jnp.asarray(np.random.default_rng(0).random((2, 3, 67, 67)),
+                    jnp.bfloat16)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), x)
+    tables = jax.jit(lambda v: model.phi_tables(v, (67, 67)))(variables)
+    assert set(tables) == {"dau_conv2", "dau_conv3", "dau_conv4",
+                           "dau_conv5"}
+    plain = jax.jit(model.apply)(variables, x)
+    served = jax.jit(lambda v, t, x: model.apply(v, x, phi_tables=t))(
+        variables, tables, x)
+    assert jnp.array_equal(plain, served)
+
+
+def test_alexnet_f32_uses_the_oracle_engine():
+    """f32 resolves to precision 'highest' and the xla engine (no phase
+    tables to cache); bf16 to the fourier engine."""
+    assert AlexNetDAU(dtype=jnp.float32).layer(8).settings().engine == "xla"
+    assert AlexNetDAU(dtype=jnp.bfloat16).layer(8).settings().engine == "fourier"
+    tables = AlexNetDAU(num_classes=3).phi_tables(
+        {"params": {n: None for n in ("dau_conv2", "dau_conv3", "dau_conv4",
+                                      "dau_conv5")}}, (67, 67))
+    assert all(t is None for t in tables.values())
+
+
+def test_core_init_follows_reference_initializers():
+    layer = DAULayer(filters=3, dau_units=(1, 1), max_kernel_size=9)
+    p = layer.init(jax.random.PRNGKey(0), 2)
+    assert p["weights"].shape == (1, 2, 2, 3)
+    assert np.all(np.asarray(p["weights"])[:, :, 1] == 0)  # dummy unit
+    np.testing.assert_allclose(np.asarray(p["sigma"]), [0.5])
+    assert np.all(np.asarray(p["bias"]) == 0)
+    # grid means within +-(k//2 - 1)
+    assert np.abs(np.asarray(p["mu1"])).max() <= 3.0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(data_format="channels_last"),
+    dict(strides=2, use_bias=False),
+    dict(dau_unit_single_dim=True, dau_aggregation_forbid_positive_dim1=True),
+    dict(dau_sigma_trainable=True, engine="fourier"),
+], ids=["base", "nhwc", "stride2", "1d_causal", "sigma_trainable"])
+def test_flax_wrapper_matches_core(kw):
+    """nn.DAUConv2d is a thin wrapper: with the same parameters its output
+    and gradients equal DAULayer.apply's."""
+    from dau_convnet.nn import DAUConv2d
+
+    rng = np.random.default_rng(0)
+    shape = (2, 10, 12, 3) if kw.get("data_format") else (2, 3, 10, 12)
+    x = jnp.asarray(rng.random(shape), jnp.float32)
+    module = DAUConv2d(filters=4, dau_units=(2, 1), max_kernel_size=9,
+                       activation=jax.nn.relu, **kw)
+    core = module.core()
+    variables = module.init(jax.random.PRNGKey(0), x)
+    params = variables["params"]
+
+    def via_flax(p):
+        return jnp.sum(module.apply({"params": p}, x) ** 2)
+
+    def via_core(p):
+        return jnp.sum(core.apply(p, x, activation=jax.nn.relu) ** 2)
+
+    v1, g1 = jax.jit(jax.value_and_grad(via_flax))(params)
+    v2, g2 = jax.jit(jax.value_and_grad(via_core))(params)
+    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-6)
+    for k in params:
+        np.testing.assert_allclose(np.asarray(g1[k]), np.asarray(g2[k]),
+                                   rtol=1e-6, atol=1e-9, err_msg=k)

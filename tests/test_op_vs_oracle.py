@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
 
 from helpers import assert_matrix, oracle_fwd_bwd, random_case
 
@@ -124,7 +124,7 @@ def test_normalization_variants(norm):
 
     y, grads = fwd_bwd(x, w, mu1, mu2, sig, jnp.asarray(err))
 
-    from dau_convnet_tpu.ops import reference as oracle
+    from dau_convnet.ops import reference as oracle
     gt_fwd = oracle.forward(x, w, mu1, mu2, [float(sigma)],
                             unit_normalization=not square and norm != "none",
                             square_unit_normalization=square)
@@ -138,15 +138,6 @@ def test_normalization_variants(norm):
     assert_matrix(np.asarray(grads[2]), gt_bwd[2], "bwd_mu1_grad")
     assert_matrix(np.asarray(grads[3]), gt_bwd[3], "bwd_mu2_grad")
     assert_matrix(np.asarray(grads[4]), gt_bwd[4], "bwd_sigma_grad")
-
-
-@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
-def test_engines_in_oracle_matrix(engine):
-    """The Pallas engines pass the same oracle contract as the XLA engine
-    (interpret mode on CPU; compiled equivalence is checked on TPU by
-    /tmp-style scripts and bench.py)."""
-    run_case(N=2, W=12, H=10, S=3, F=4, units=(2, 1), max_kernel_size=9,
-             max_offset_init=3, seed=11, engine=engine)
 
 
 @pytest.mark.parametrize("case", [
@@ -167,6 +158,21 @@ def test_fourier_engine_in_oracle_matrix(case):
     oracle at the reference tolerance across geometry/tier/interp/dummy-unit
     configs."""
     run_case(**case, engine="fourier")
+
+
+@pytest.mark.parametrize("g_units", [(1, 1), (2, 1), (2, 2)],
+                         ids=["G1", "G2", "G4"])
+@pytest.mark.parametrize("shape", [
+    dict(N=8, S=8, F=8, H=12, W=10),
+    dict(N=2, S=8, F=8, H=10, W=9),
+    dict(N=2, S=8, F=16, H=14, W=14),
+], ids=["n8_12x10", "n2_10x9", "f16_14x14"])
+def test_fourier_spectral_backward_vs_oracle(shape, g_units):
+    """The fourier engine's backward (cross-spectra + spectral tap-gather,
+    the only backward it has) against the oracle over unit counts G=1, 2,
+    4, at f32 'highest'."""
+    run_case(**shape, units=g_units, max_kernel_size=9, max_offset_init=3,
+             seed=31, engine="fourier", unit_testing=False)
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +202,6 @@ _SHIM_IDS = ["base", "patchsplit", "k17", "nointerp", "dummyunit"]
 @pytest.mark.parametrize("case", SHIMOFF_CASES, ids=_SHIM_IDS)
 def test_shim_off(engine, case):
     run_case(**case, engine=engine, unit_testing=False)
-
-
-@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
-def test_shim_off_pallas(engine):
-    run_case(N=2, W=12, H=10, S=3, F=4, units=(2, 1), max_kernel_size=9,
-             max_offset_init=3, seed=26, engine=engine, unit_testing=False)
 
 
 def test_shim_off_fuzz():

@@ -16,9 +16,9 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from dau_convnet_tpu.nn import DAUConv2d, set_dau_variables_manually
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-from dau_convnet_tpu.ops import reference as oracle
+from dau_convnet.nn import DAUConv2d, set_dau_variables_manually
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
+from dau_convnet.ops import reference as oracle
 
 from helpers import assert_matrix
 
@@ -186,32 +186,14 @@ def test_engine_auto_resolution():
     """'auto' resolves at construction: fourier for production bf16
     precision, xla for the f32 oracle mode (round-2 verdict: the documented
     quick start must get the measured-fastest engine)."""
-    from dau_convnet_tpu.ops import DAUConvSettings
+    from dau_convnet.ops import DAUConvSettings
 
     assert DAUConvSettings(precision="default").engine == "fourier"
     assert DAUConvSettings(precision="highest").engine == "xla"
     # explicit choice is never overridden
     assert DAUConvSettings(engine="fourier", precision="highest").engine == "fourier"
-    with pytest.raises(ValueError):
-        DAUConvSettings(fused_bwd="maybe")
-
-
-def test_fused_bwd_plan_error_is_distinct():
-    """The no-VMEM-plan signal is a dedicated exception type so the op's
-    fallback catch cannot mask real contract bugs (round-2 advisory)."""
-    from dau_convnet_tpu.kernels.fused_bwd import (FusedPlanError,
-                                                   fused_spectral_grads_call)
-    import jax.numpy as jnp
-
-    assert issubclass(FusedPlanError, ValueError)
-    xs = jnp.zeros((8, 1, 2, 3))   # S=3: no supported block plan
-    es = jnp.zeros((8, 2, 5))
-    t1 = jnp.zeros((8, 6))
-    t2 = jnp.zeros((4, 6))
-    a1 = jnp.zeros((6, 1, 3, 5))
-    with pytest.raises(FusedPlanError):
-        fused_spectral_grads_call(xs, es, t1, t2, a1, a1, n_img=1,
-                                  p1b=4, rbb=2)
+    with pytest.raises(ValueError, match="unknown engine"):
+        DAUConvSettings(engine="spectral")
 
 
 def test_remat_phi_matches_default():
@@ -247,144 +229,11 @@ def test_remat_phi_matches_default():
                                    rtol=1e-5, atol=1e-7, err_msg=nm)
 
 
-def test_remat_phi_with_fused_backward():
-    """remat_phi composes with the fused backward (fused_bwd='on'): the
-    unit grads come from the kernel (which needs no HBM phi) and the dx
-    path rebuilds phi; numerics match the default stashed-phi config."""
-    import dataclasses
-
-    rng = np.random.default_rng(5)
-    N, S, G, F, H, W = 2, 8, 2, 8, 10, 9
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg0 = DAUConvSettings(kernel_size=9, engine="fourier")
-    cfg1 = dataclasses.replace(cfg0, remat_phi=True, fused_bwd="on")
-
-    def run(cfg):
-        @jax.jit
-        def f(x, w, mu1, mu2, sig, err):
-            y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                             x, w, mu1, mu2, sig)
-            return y, vjp(err)
-        return f(x, w, mu1, mu2, sig, err)
-
-    y0, g0 = run(cfg0)
-    y1, g1 = run(cfg1)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y0), rtol=1e-6)
-    for a, b, nm in zip(g1, g0, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-6, err_msg=nm)
-
-
-def test_fused_gather_auto_resolution():
-    """fused_gather='auto' resolves per shape at trace time. Since the
-    round-5 recalibration (FACTORED_MIN_BINS = None, measured: the
-    blocked-dot factored form loses at both bin regimes) 'auto' is phi
-    everywhere; explicit settings pass through unchanged."""
-    from dau_convnet_tpu.ops.dau_conv import _resolve_gather
-
-    cfg_auto = DAUConvSettings(engine="fourier", fused_gather="auto")
-    for bins in (1, 153, 496, 10_000):
-        assert _resolve_gather(cfg_auto, bins) == "phi"
-    assert _resolve_gather(
-        DAUConvSettings(engine="fourier", fused_gather="phi"), 10_000) == "phi"
-    assert _resolve_gather(
-        DAUConvSettings(engine="fourier", fused_gather="factored"),
-        1) == "factored"
-
-
-def test_fused_gather_auto_numerics_match_phi(caplog):
-    """At a small-bin shape, fused_gather='auto' selects (and logs) the phi
-    gather and produces byte-identical grads to an explicit 'phi' config."""
-    import dataclasses
-    import logging
-
-    rng = np.random.default_rng(7)
-    N, S, G, F, H, W = 2, 8, 2, 8, 10, 9
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-3, 3, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg_phi = DAUConvSettings(kernel_size=9, engine="fourier",
-                              fused_bwd="on", fused_gather="phi")
-    cfg_auto = dataclasses.replace(cfg_phi, fused_gather="auto")
-
-    def run(cfg):
-        @jax.jit
-        def f(x, w, mu1, mu2, sig, err):
-            y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                             x, w, mu1, mu2, sig)
-            return y, vjp(err)
-        return f(x, w, mu1, mu2, sig, err)
-
-    _, g_phi = run(cfg_phi)
-    with caplog.at_level(logging.INFO,
-                         logger="dau_convnet_tpu.ops.dau_conv"):
-        _, g_auto = run(cfg_auto)
-    assert "gather=phi" in caplog.text, caplog.text
-    for a, b, nm in zip(g_auto, g_phi, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=nm)
-
-
-def test_fused_gather_factored_high_bins_matches_unfused(caplog):
-    """The explicit table-factored gather at a high-bin shape engages the
-    fused kernel (logged) and its grads match the unfused spectral path.
-    (Until the round-5 recalibration this was the 'auto' branch; 'auto'
-    now resolves to phi everywhere, so factored coverage is via the
-    explicit opt-in.)"""
-    import dataclasses
-    import logging
-
-    from dau_convnet_tpu.ops import fourier_engine
-
-    H = W = 14
-    ks = 17
-    p1, _, rb = fourier_engine.plan_bins(H, W, ks)
-    assert p1 * rb >= 257  # a high-bin shape (phi's fused gate rejects it)
-
-    rng = np.random.default_rng(11)
-    N, S, G, F = 2, 8, 2, 8
-    x = jnp.asarray(rng.random((N, S, H, W)), jnp.float32)
-    err = jnp.asarray(rng.standard_normal((N, F, H, W)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((1, S, G, F)) * 0.1, jnp.float32)
-    mu1 = jnp.asarray(rng.uniform(-6, 6, (1, S, G, F)), jnp.float32)
-    mu2 = jnp.asarray(rng.uniform(-6, 6, (1, S, G, F)), jnp.float32)
-    sig = jnp.full((1, S, G, F), 0.5, jnp.float32)
-    cfg_unfused = DAUConvSettings(kernel_size=ks, engine="fourier",
-                                  precision="highest", fused_bwd="off")
-    cfg_auto = dataclasses.replace(cfg_unfused, fused_bwd="on",
-                                   fused_gather="factored")
-
-    def run(cfg):
-        @jax.jit
-        def f(x, w, mu1, mu2, sig, err):
-            y, vjp = jax.vjp(lambda *a: dau_conv2d_op(cfg, *a),
-                             x, w, mu1, mu2, sig)
-            return y, vjp(err)
-        return f(x, w, mu1, mu2, sig, err)
-
-    _, g_ref = run(cfg_unfused)
-    with caplog.at_level(logging.INFO,
-                         logger="dau_convnet_tpu.ops.dau_conv"):
-        _, g_auto = run(cfg_auto)
-    assert "gather=factored" in caplog.text, caplog.text
-    for a, b, nm in zip(g_auto, g_ref, ["dx", "dw", "dmu1", "dmu2", "dsig"]):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=1e-6, err_msg=nm)
-
-
 def test_jax_checkpoint_composes():
     """`jax.checkpoint` around a two-DAU-layer function (the standard
     activation-memory lever for deep stacks) must leave gradients exactly
     equal to the unremated form - the custom-VJP op's residuals ride
-    through remat - including with the fused backward forced on."""
+    through remat - for both engines."""
     import dataclasses
 
     rng = np.random.default_rng(7)
@@ -398,9 +247,8 @@ def test_jax_checkpoint_composes():
     sig1 = jnp.full((1, S, G, F), 0.5, jnp.float32)
     sig2 = jnp.full((1, F, G, F), 0.5, jnp.float32)
 
-    for fused in ("off", "on"):
-        cfg = DAUConvSettings(kernel_size=9, engine="fourier",
-                              fused_bwd=fused)
+    for engine in ("xla", "fourier"):
+        cfg = DAUConvSettings(kernel_size=9, engine=engine)
 
         def stack(x, w1, w2):
             h = jax.nn.relu(dau_conv2d_op(cfg, x, w1, mu, mu, sig1))
@@ -416,8 +264,23 @@ def test_jax_checkpoint_composes():
         y0, g0 = run(stack)
         y1, g1 = run(jax.checkpoint(stack))
         np.testing.assert_allclose(np.asarray(y1), np.asarray(y0),
-                                   rtol=1e-6, err_msg=f"fused={fused}")
+                                   rtol=1e-6, err_msg=f"engine={engine}")
         for a, b, nm in zip(g1, g0, ["dx", "dw1", "dw2"]):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=1e-5, atol=1e-7,
-                                       err_msg=f"{nm} fused={fused}")
+                                       err_msg=f"{nm} engine={engine}")
+
+
+@pytest.mark.parametrize("field", ["fused_bwd", "fused_dx", "fused_gather",
+                                   "data_axis", "model_axis"])
+def test_removed_settings_raise(field):
+    """The fused-backward kernel and its routing settings are gone: the
+    plain XLA path is the only one, so no setting selects another."""
+    with pytest.raises(TypeError, match=field):
+        DAUConvSettings(**{field: "on"})
+
+
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_removed_engines_raise(engine):
+    with pytest.raises(ValueError, match="unknown engine"):
+        DAUConvSettings(engine=engine)

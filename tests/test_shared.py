@@ -5,8 +5,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dau_convnet_tpu.ops import DAUConvSettings, dau_conv2d_op
-from dau_convnet_tpu.ops.shared_engine import dau_conv2d_shared_op
+from dau_convnet.ops import DAUConvSettings, dau_conv2d_op
+from dau_convnet.ops.shared_engine import dau_conv2d_shared_op
 
 
 def _case(seed=0, N=2, S=3, G=2, F=4, H=9, W=11):

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dau_convnet_tpu.ops import DAUConvSettings, gaussian_filters
-from dau_convnet_tpu.ops.gaussian import blur_kernel_size
-from dau_convnet_tpu.utils import snap_kernel_tier, tier_for_params
-from dau_convnet_tpu.utils import math as dmath
+from dau_convnet.ops import DAUConvSettings, gaussian_filters
+from dau_convnet.ops.gaussian import blur_kernel_size
+from dau_convnet.utils import snap_kernel_tier, tier_for_params
+from dau_convnet.utils import math as dmath
 
 
 def test_kernel_tiers():
@@ -115,7 +115,7 @@ def test_gaussian_factor_filters_match_dense(unit_norm, square_norm,
     `gaussian_filters` across ALL normalization modes (the fourier-engine
     oracle matrix only exercises default unit normalization; this pins the
     square/none branches too - round-2 advisory)."""
-    from dau_convnet_tpu.ops.gaussian import gaussian_factor_filters
+    from dau_convnet.ops.gaussian import gaussian_factor_filters
 
     for sigma in (0.5, 0.8, 1.3):
         dense = gaussian_filters(
@@ -153,8 +153,10 @@ def test_bench_time_chained_tiny_iters():
         x, = c
         return (x * 1.000001,)
 
-    dt = bench.time_chained(make_step, (jnp.ones((4, 4)),), iters=2, pairs=1)
+    dt, pairs_ms, compile_s = bench.time_chained(
+        make_step, (jnp.ones((4, 4)),), iters=2, pairs=1)
     assert np.isfinite(dt) and dt > 0
+    assert len(pairs_ms) == 1 and compile_s >= 0
 
 
 def test_retier_offset_policy():
@@ -162,7 +164,7 @@ def test_retier_offset_policy():
     replacement for the reference's per-step amax tier dispatch,
     dau_conv_op.cpp:223-256): grow immediately on any excess, shrink only
     past the hysteresis slack, never exceed the kernel's own bound."""
-    from dau_convnet_tpu.utils.tiers import retier_offset
+    from dau_convnet.utils.tiers import retier_offset
 
     # grow: live exceeds the promise -> new bound covers it (+0.5 slack)
     assert retier_offset(2.2, 2.0, kernel_size=9) == 3.0
